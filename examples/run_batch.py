@@ -4,8 +4,8 @@ program per frame (vslam_tpu.parallel.multi_seq; SURVEY.md §7 phase 5).
 Usage: python examples/run_batch.py [n_seqs] [n_frames]
 
 Prints per-sequence ATE and the aggregate frames/s. Best suited to
-configurations where a single sequence underfills the chip (see the
-module docstring's measured regimes).
+configurations where a single sequence underfills the device (see the
+vslam_tpu.parallel.multi_seq docstring).
 """
 
 import os

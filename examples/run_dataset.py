@@ -38,6 +38,7 @@ from vslam_tpu.models.system import VSlamSystem
 from vslam_tpu.utils.config import ConfigFile, SlamMode
 from vslam_tpu.utils.datasets import open_dataset
 from vslam_tpu.utils import checkpoint as ckpt_io
+from vslam_tpu.utils import compile_cache
 
 _stop = False
 
@@ -72,6 +73,7 @@ def _host_rectify_maps(conf: ConfigFile, mono: bool):
 
 
 def main():
+    compile_cache.setup()
     ap = argparse.ArgumentParser()
     ap.add_argument("config")
     ap.add_argument("--data-root", default=None)

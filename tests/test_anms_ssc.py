@@ -1,12 +1,12 @@
 """ANMS validation against an independent SSC oracle on natural-statistics
-and repeated-structure textures (VERDICT r4 #4).
+and repeated-structure textures.
 
 The reference's keypoint thinning is SSC — suppression via square
 covering (Bailo et al.), binary-searching a suppression width until
 ~numRetPoints spatially-spread keypoints remain
 (/root/reference/src/FeatureExtractor.cpp:368-468). The repo's
 replacement is a per-cell top-k (ops/fast.select_keypoints) chosen for
-static shapes on TPU. Self-consistency is not reference-equivalence:
+static shapes on the device. Self-consistency is not reference-equivalence:
 this file implements SSC itself as a NumPy oracle and compares the two
 selections' CONTRACT — spatial uniformity (grid coverage), quota
 adherence, and response retention — on 1/f natural-noise and

@@ -232,8 +232,8 @@ def _build_world_at_scale(n_kf, n_lm, keys_per_kf, obs_per_lm=3, seed=0):
 def test_global_ba_at_map_scale_completes():
     """run_global over a 256-KF / 50k-landmark map (KITTI-00 order of
     magnitude) completes on one device via the slab-chunked Schur
-    reduction (VERDICT r2 weak #6: the dense (W,L,6,3) Hpl would be
-    ~2.3 GiB; chunking bounds it) and refines perturbed poses."""
+    reduction (the dense (W,L,6,3) Hpl would be ~2.3 GiB; chunking
+    bounds it) and refines perturbed poses."""
     import dataclasses
 
     from vslam_tpu.models import local_mapper
@@ -285,7 +285,7 @@ def test_global_ba_at_map_scale_completes():
 
 def test_global_ba_truncation_is_logged(capsys):
     """Landmark truncation at max_landmarks must be observable — a
-    warning line + counter, never silent (VERDICT r2 weak #6)."""
+    warning line + counter, never silent."""
     from vslam_tpu.models import local_mapper
 
     world, _, _ = _build_world_at_scale(16, 3000, keys_per_kf=1024)

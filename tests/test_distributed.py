@@ -8,7 +8,8 @@ global mesh with one local device per process — and runs the SAME
 sharded 2-round BA kernel the single-host mesh runs. Each process builds
 the identical (replicated) problem, the psum rides the inter-process
 backend, and the result must match the single-device solve. This is the
-exact code path a 2-host TPU deployment uses (DCN instead of Gloo).
+exact code path a 2-host deployment uses (with the accelerators'
+collective backend instead of Gloo).
 """
 
 import os

@@ -1,8 +1,7 @@
 """CLI driver + native-IO integration: a synthetic PNG sequence in KITTI
 layout driven through examples/run_dataset.py (the reference VIOSlam
 driver's role, src/VIOSlam.cpp:141-329) — native prefetcher default path,
-checkpoint/resume continuation, and viz/PLY outputs (VERDICT round-1
-items #5 and #10)."""
+checkpoint/resume continuation, and viz/PLY outputs."""
 
 import os
 import subprocess
@@ -54,8 +53,6 @@ FE: {{nFeatures: 512, nLevels: 4, imScale: 1.2, edgeThreshold: 19, maxFastThresh
 def _run_driver(args, cwd):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["JAX_COMPILATION_CACHE_DIR"] = os.path.join(REPO, ".jax_cache")
-    env["JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS"] = "0"
     r = subprocess.run(
         [sys.executable, DRIVER, *args],
         cwd=cwd, env=env, capture_output=True, text=True, timeout=1800,

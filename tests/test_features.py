@@ -147,7 +147,7 @@ def test_brief_consistency_across_views():
     p1, s1 = describe(jnp.asarray(img1), xy1)
     d = np.asarray(hamming.hamming_matrix(s0, s1))
     dp = np.asarray(hamming.packed_hamming(p0, p1))
-    # MXU form and packed popcount form agree exactly
+    # matmul form and packed popcount form agree exactly
     np.testing.assert_array_equal(d.astype(np.int32), dp)
     # same landmark across views: distance far below the 75 stereo threshold
     diag = np.diag(d)
@@ -175,7 +175,7 @@ def test_gaussian_blur_preserves_mean_and_smooths():
 
 
 def test_brief_matmul_matches_gather_oracle():
-    """The MXU one-hot BRIEF (brief_from_patches) must be bit-exact vs the
+    """The one-hot matmul BRIEF (brief_from_patches) must be bit-exact vs the
     gather oracle (brief_from_patches_gather)."""
     rng = np.random.default_rng(7)
     patches = jnp.asarray(rng.uniform(0, 255, size=(2, 64, 31, 31)).astype(np.float32))
@@ -210,10 +210,9 @@ def test_onehot_patch_extraction_matches_direct_indexing():
 
 
 def test_extract_windows_matches_direct_indexing():
-    """ops/patches.extract_windows (the Pallas window kernel on TPU; XLA
-    gather fallback here on CPU) must equal direct advanced indexing for
-    in-range top-left corners, for both the BRIEF (31x31) and SAD
-    (11x21) window shapes."""
+    """ops/patches.extract_windows (the XLA gather) must equal direct
+    advanced indexing for in-range top-left corners, for both the BRIEF
+    (31x31) and SAD (11x21) window shapes."""
     from vslam_tpu.ops import patches as patches_mod
 
     rng = np.random.default_rng(5)
@@ -236,7 +235,7 @@ def test_packed_descriptor_roundtrip_and_matmul_parity():
     """The map stores descriptors bit-packed (W, K, 8) uint32 (32x less
     HBM than the +-1 int8 form); matchers unpack per block. pack/unpack
     must be exact inverses in both orders, match ops/orb's packing
-    convention, and the unpacked MXU Hamming must equal the SWAR
+    convention, and the unpacked matmul Hamming must equal the SWAR
     popcount oracle on the packed form."""
     rng = np.random.default_rng(11)
     signed = (rng.integers(0, 2, (64, 256)) * 2 - 1).astype(np.int8)
@@ -247,10 +246,10 @@ def test_packed_descriptor_roundtrip_and_matmul_parity():
     np.testing.assert_array_equal(hamming.unpack_signed_np(packed), signed)
 
     other = (rng.integers(0, 2, (48, 256)) * 2 - 1).astype(np.int8)
-    d_mxu = np.asarray(
+    d_matmul = np.asarray(
         hamming.hamming_matrix(jnp.asarray(signed), jnp.asarray(other))
     )
     d_pop = np.asarray(
         hamming.packed_hamming(packed, hamming.pack_signed(jnp.asarray(other)))
     )
-    np.testing.assert_array_equal(d_mxu.astype(np.int32), d_pop)
+    np.testing.assert_array_equal(d_matmul.astype(np.int32), d_pop)

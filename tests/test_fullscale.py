@@ -1,4 +1,4 @@
-"""Full-scale on-disk dataset through the shipped driver (VERDICT r2 #6).
+"""Full-scale on-disk dataset through the shipped driver.
 
 An EuRoC-RESOLUTION synthetic sequence (752x480, 200 frames @ 20 fps,
 IMU CSV at 200 Hz) is rendered to PNGs in the EuRoC mav0 layout and driven
@@ -84,8 +84,6 @@ IMU: {{Hz: 200, gyroscope_noise_density: 1.7e-4, accelerometer_noise_density: 2.
 def _run_driver(args, cwd, timeout=1700):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["JAX_COMPILATION_CACHE_DIR"] = os.path.join(REPO, ".jax_cache")
-    env["JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS"] = "0"
     r = subprocess.run(
         [sys.executable, DRIVER, *args],
         cwd=cwd, env=env, capture_output=True, text=True, timeout=timeout,
@@ -130,7 +128,7 @@ def test_fullscale_driver_checkpoint_resume_globalba(euroc_dir, tmp_path):
     # whole stack (PNG quantization + resume seam + async BA included).
     # Bench-measured ATE on this geometry is ~0.008-0.03; the gate sits
     # at ~2x the worst measured so a real regression cannot hide inside
-    # it (VERDICT r3 weak #6 tightened the old 0.15)
+    # it (tightened from the old 0.15)
     assert ate < 0.05, ate
     assert html.stat().st_size > 1000
 
@@ -143,7 +141,7 @@ def test_fullscale_driver_checkpoint_resume_globalba(euroc_dir, tmp_path):
 # ---------------------------------------------------------------------------
 # Long adversarial run: 1000 frames at EuRoC rate through the on-disk
 # driver, with photometric noise + exposure drift + static occluders + a
-# low-texture stretch (VERDICT r3 next-round #5: the only validation this
+# low-texture stretch (the only validation this
 # machine allows for the BASELINE.md TBD table must be long and
 # photometrically adversarial, not short and clean).
 # ---------------------------------------------------------------------------
@@ -206,7 +204,7 @@ IMU: {{Hz: 200, gyroscope_noise_density: 1.7e-4, accelerometer_noise_density: 2.
 
 
 # ---------------------------------------------------------------------------
-# Natural-statistics adversarial run (VERDICT r4 #4): the SAME 1000-frame
+# Natural-statistics adversarial run: the SAME 1000-frame
 # adversarial gauntlet, but textured with 1/f spectral (pink) noise —
 # natural-image second-order statistics with long-range correlation and
 # weak local contrast, the regime the builder-blob textures cannot proxy.
@@ -275,7 +273,7 @@ def test_long_adversarial_natural_texture_run(euroc_long_natural_dir, tmp_path):
     """1000 frames of 1/f natural texture + photometric noise + occluders
     + the low-texture corridor, stereo-IMU through the on-disk driver —
     the strongest available proxy for the BASELINE.md TBD real-data
-    table (VERDICT r4 #4)."""
+    table."""
     cfg, scene = euroc_long_natural_dir
     out = tmp_path / "traj.txt"
     _run_driver(
@@ -293,7 +291,7 @@ def test_long_adversarial_natural_texture_run(euroc_long_natural_dir, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Mono-IMU long run (VERDICT r4 #5: the adversarial tier had no mono leg):
+# Mono-IMU long run (the adversarial tier's mono leg):
 # 1000 frames of the lateral-sweep regime mono init needs, with
 # photometric noise + exposure flicker, driven as slamMode 2 through the
 # on-disk driver. Mono scale rides on the IMU; drift is gated vs path.
@@ -358,7 +356,7 @@ N_MONO = 400  # the in-spec mono horizon (see test docstring)
 @pytest.mark.slow
 def test_long_mono_imu_driver_run(euroc_long_mono_dir, tmp_path):
     """400 mono-IMU frames / ~12 m lateral sweep with photometric noise
-    through the driver — the adversarial tier's mono leg (VERDICT r4 #5).
+    through examples/run_dataset.py — the adversarial tier's mono leg.
 
     Horizon note (measured, BASELINE.md "Mono drift envelope"): mono-IMU
     drift is ~0.8% of path at 400 frames but turns SUPER-linear past
@@ -385,7 +383,7 @@ def test_long_mono_imu_driver_run(euroc_long_mono_dir, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# KITTI-00-scale ENDURANCE run (VERDICT r4 #7): 3200 frames / 3.3 laps of
+# KITTI-00-scale ENDURANCE run: 3200 frames / 3.3 laps of
 # the circuit through the on-disk driver — stereo mode, native IO, async
 # BA, loop closure ON (repeated revisits of the same region every lap),
 # checkpoint mid-run + resume, auto global BA at the end. Exercises
@@ -454,7 +452,7 @@ FE: {{nFeatures: 512, nLevels: 6, imScale: 1.2, edgeThreshold: 19, maxFastThresh
 def test_endurance_multiloop_driver_run(endurance_dir, tmp_path):
     """3200 frames / ~124 m over 3.3 laps: checkpoint at the half-way
     point, resume, loop closures firing on every lap, final global BA —
-    ATE gated at 0.1% of path length (VERDICT r4 #7)."""
+    ATE gated at 0.1% of path length."""
     cfg, scene = endurance_dir
     out = tmp_path / "traj.txt"
     ck = tmp_path / "ck.npz"

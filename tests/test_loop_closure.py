@@ -222,9 +222,8 @@ def test_sim3_pose_graph_recovers_scale_drift():
 
 
 def test_sparse_pose_graph_scales_to_2048():
-    """A 2048-keyframe graph (the dense path's documented P <= ~1k wall,
-    VERDICT r4 weak #6: a KITTI-scale map with degraded tracking blows
-    past 1k KFs) with 3 loop edges optimizes in seconds on the CPU tier
+    """A 2048-keyframe graph (the dense path's documented P <= ~1k wall:
+    a KITTI-scale map with degraded tracking blows past 1k KFs) with 3 loop edges optimizes in seconds on the CPU tier
     and recovers the drift."""
     import time
 
@@ -414,8 +413,7 @@ def test_loop_closure_detects_and_merges():
 
 
 def test_mono_mode_loop_closure_detects_and_merges():
-    """Loop closure in MONOCULAR observation mode (VERDICT r4 #5: loop
-    closure had no mono test): the split-map world re-run with
+    """Loop closure in MONOCULAR observation mode: the split-map world re-run with
     baseline=0 and NO right-camera rows — detection, the
     projection-only geometric verification (the path mono mode
     exercises), the Sim(3) chain graph and the merge must close it.
@@ -457,8 +455,7 @@ def test_mono_mode_loop_closure_detects_and_merges():
 
 @pytest.mark.slow
 def test_live_circuit_loop_closure(tmp_path):
-    """Loop closure END-TO-END through the LIVE pipeline (VERDICT r3
-    next-round #1): the tracker drives a full synthetic circuit
+    """Loop closure END-TO-END through the LIVE pipeline: the tracker drives a full synthetic circuit
     (make_loop_scene: camera circles inside a cylindrical wall, returning
     to its start pose), accumulating real odometry drift; detection must
     fire at the actual revisit — validating MIN_GAP / min_votes /
@@ -522,8 +519,8 @@ FE: {{nFeatures: 1024, nLevels: 8, imScale: 1.2, edgeThreshold: 19, maxFastThres
     sys_.loop_closer.close = close_spy
 
     # keyframe-pose ATE vs ground truth, sampled around the automatic
-    # post-closure polish (VERDICT r4 #3: the BA must IMPROVE on the
-    # graph-only correction, not just not regress)
+    # post-closure polish (the BA must IMPROVE on the graph-only
+    # correction, not just not regress)
     w = sys_.world
 
     def kf_ate():
@@ -567,7 +564,7 @@ FE: {{nFeatures: 1024, nLevels: 8, imScale: 1.2, edgeThreshold: 19, maxFastThres
     assert post < pre, (pre, post)
 
     # 3. the AUTOMATIC post-closure polish ran and improved on the
-    #    graph-only correction (VERDICT r4 #3: ate_post_ba < ate_post_graph).
+    #    graph-only correction (ate_post_ba < ate_post_graph).
     #    Per-polish kf-ATE deltas are noisy run-to-run (async consume
     #    timing shifts closure cadence; a single polish can land within
     #    the +-0.01 noise band), so the evidence gate is: SOME polish

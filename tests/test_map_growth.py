@@ -1,5 +1,5 @@
 """Map capacity growth: long sequences must not hit the round-1 hard
-RuntimeError wall (VERDICT weak #5; KITTI 00 runs ~4.5k frames / ~900 KFs
+RuntimeError wall (KITTI 00 runs ~4.5k frames / ~900 KFs
 against a 512-KF default). Growth is a one-time array reallocation that
 preserves all content."""
 

@@ -1,7 +1,7 @@
 """Distributed BA tests on the virtual 8-device CPU mesh.
 
 SURVEY.md §4's distributed-test strategy: the single-host and N-shard BA
-must produce tolerance-identical updates, runnable without TPU pod hardware
+must produce tolerance-identical updates, runnable without several devices
 via the conftest's 8-device CPU mesh. The sharded path here is the SAME
 kernel the live mapper runs (schur.local_ba_two_rounds with axis_name),
 so these tests cover the production distributed path, not a demo.
@@ -91,8 +91,7 @@ def test_sharded_two_rounds_realistic_size_runs():
 def test_sharded_slabbed_matches_single_device():
     """The COMPOSED path — mesh-sharded linearization + slab-chunked
     Schur reduction (run_global at map scale) — must match both the
-    unsharded-slabbed and the plain single-device kernels (VERDICT r3
-    item 2's done-criterion)."""
+    unsharded-slabbed and the plain single-device kernels."""
     p, poses_gt, pts_gt = _build_problem(W=8, L=128, seed=5)
     mesh = mesh_mod.make_mesh(N_DEV, axis=sharded_ba.AXIS)
     # L=128, n_slabs=4, mesh=8 -> 4-landmark sub-slabs per shard
@@ -163,8 +162,7 @@ def test_global_ba_uses_mesh_when_slabbed(monkeypatch):
 @pytest.mark.slow
 def test_sharded_mapper_end_to_end_matches_single_device():
     """Full tracking+mapping loop with the SHARDED mapper vs the
-    single-device mapper: same trajectory to float-reduction tolerance
-    (VERDICT round-1 item 1's done-criterion)."""
+    single-device mapper: same trajectory to float-reduction tolerance."""
     scene = synthetic.make_scene(
         n_frames=12, n_points=400, width=320, height=240, fps=10.0, seed=7
     )
@@ -297,8 +295,7 @@ def test_multi_sequence_batch_matches_individual_runs():
 
 
 def test_multi_sequence_batch_mono():
-    """Mono-IMU multi-sequence batch (VERDICT r4 #5: multi-sequence was
-    stereo-only): bootstraps run unbatched per sequence, the steady state
+    """Mono-IMU multi-sequence batch: bootstraps run unbatched per sequence, the steady state
     rides one vmapped mono _track_step; each sequence's trajectory must
     match its own solo mono run."""
     from vslam_tpu.models import local_mapper, map_state, tracker
@@ -389,8 +386,8 @@ def test_multi_sequence_batch_mono():
 
 
 def test_multi_sequence_batch_imu():
-    """Stereo-IMU multi-sequence batch (VERDICT r3 #3c: the IMU state is
-    per-sequence identical and batches the same way): per-sequence IMU
+    """Stereo-IMU multi-sequence batch (the IMU state is per-sequence
+    identical and batches the same way): per-sequence IMU
     constants ride as batched operands, per-frame sample bins as a
     stacked array; each sequence's trajectory must match its own solo
     stereo-IMU run."""

@@ -3,7 +3,7 @@ path (reference VSlamSystem, src/System.cpp:6-124): config-driven
 construction (rectified KITTI-style and unrectified EuRoC-style rigs),
 track_stereo in sync and async-BA modes, track_mono_imu with the gravity
 init and the mono init-triangulation handoff, and trajectory parity with
-the direct tracker+mapper loop (VERDICT round-1 weak #2)."""
+the direct tracker+mapper loop."""
 
 import numpy as np
 import pytest
@@ -107,7 +107,7 @@ def _run_system(sys_, scene, n, imu_bins=None):
 def test_sync_system_matches_direct_loop(tmp_path, scene):
     """The facade's sync path must produce the same trajectory as wiring
     tracker+mapper by hand — one bad index here invalidates every dataset
-    run (VERDICT weak #2)."""
+    run."""
     n = 12
     conf = ConfigFile(_write_config(tmp_path, slam_mode=1))
     assert conf.slam_mode == SlamMode.STEREO and conf.rectified
@@ -250,8 +250,8 @@ def test_mono_imu_system(tmp_path, mono_scene):
 
     Gates on REAL visual tracking, not dead-reckoning: the exact
     synthetic IMU can hold ATE alone, so the old ATE-only assert passed
-    while steady-state matching returned zero inliers (VERDICT r3 weak
-    #4 "mono is second-class" — it was in fact broken). Now: sustained
+    while steady-state matching returned zero inliers (mono was in fact
+    broken). Now: sustained
     inliers, per-KF landmark growth, AND a tight ATE."""
     scene = mono_scene
     n = 30
@@ -300,8 +300,8 @@ def test_mono_imu_system(tmp_path, mono_scene):
 
 def test_sharded_facade_matches_unsharded(tmp_path, scene):
     """VSlamSystem(shards=8) runs the local BA SHARDED over the virtual
-    8-device mesh through the USER-FACING path (VERDICT r2 weak #3: the
-    sharded kernel existed but the facade/driver never built a mesh) and
+    8-device mesh through the USER-FACING path (the facade and driver
+    build the mesh) and
     must reproduce the unsharded facade trajectory."""
     n = 12
     conf = ConfigFile(_write_config(tmp_path, slam_mode=1))

@@ -321,8 +321,8 @@ def test_close_spawn_cap_per_keyframe(scene):
 
 
 def test_blackout_recovery_reseeds_map(small_params):
-    """Lost-tracking RECOVERY (VERDICT r2 #3; the reference has nothing
-    here, SURVEY.md §5): a mid-sequence blackout (fully dark frames)
+    """Lost-tracking RECOVERY (the reference has nothing here,
+    SURVEY.md §5): a mid-sequence blackout (fully dark frames)
     followed by an unrecognizable scene ("teleport" — none of the old
     landmarks exist anymore) must not dead-reckon forever. After
     `reseed_after` consecutive refused solves on frames WITH stereo
@@ -410,7 +410,7 @@ def test_relocalization_recovers_on_old_map(small_params):
 
 
 def test_mono_relocalization_recovers_on_old_map():
-    """Mono-IMU RELOCALIZATION (VERDICT r4 #5: reloc had no mono test):
+    """Mono-IMU RELOCALIZATION:
     the mono tracker maps a lateral sweep, blacks out long enough to
     dead-reckon away, then teleports back to the start of the mapped
     area — retrieval + verified PnP must re-anchor on the ORIGINAL map
@@ -492,7 +492,7 @@ def test_mono_relocalization_recovers_on_old_map():
 
 
 def test_tracking_survives_hard_scene(small_params):
-    """Hard-mode synthetic (VERDICT round-1 #6): photometric sensor noise,
+    """Hard-mode synthetic: photometric sensor noise,
     exposure drift, and moving textureless occluders. Validates that the
     custom FAST/BRIEF pattern and the matching gates survive non-ideal
     imaging with bounded ATE (the clean-scene gate is 0.03)."""

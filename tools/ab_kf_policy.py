@@ -1,5 +1,5 @@
-"""A/B the keyframe-policy knobs on the bench scenes (VERDICT r4 #8:
-measure, don't argue).
+"""A/B the keyframe-policy knobs on the bench scenes (measure, don't
+argue).
 
 Two knobs, both repo deviations from the reference policy
 (src/FeatureTracker.cpp:1262):
@@ -45,7 +45,9 @@ def run_variant(scene, frames_key, crit, max_interval, n_frames=80, warmup=12):
 def main():
     import bench
 
-    bench._setup_cache()
+    from vslam_tpu.utils import compile_cache
+
+    compile_cache.setup()
     from vslam_tpu.utils import synthetic
 
     scene = synthetic.make_scene(

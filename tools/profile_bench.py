@@ -2,22 +2,16 @@
 shows where the gap between steady-state frame cost and the bench average
 comes from (KF insertion, BA dispatch, BA finish)."""
 
-import os
 import time
 
 import numpy as np
 
 
 def main():
-    import jax
-
-    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-
     from vslam_tpu.models import local_mapper, map_state, tracker
-    from vslam_tpu.utils import synthetic
+    from vslam_tpu.utils import compile_cache, synthetic
+
+    compile_cache.setup()
 
     n_frames = 80
     scene = synthetic.make_scene(

@@ -2,7 +2,6 @@
 device, with per-frame time percentiles — isolates the steady-state frame
 cost from BA/KF interference."""
 
-import os
 import time
 
 import numpy as np
@@ -54,9 +53,9 @@ def run(depth: int, n_frames: int = 36):
 def main():
     import jax
 
-    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from vslam_tpu.utils import compile_cache
+
+    compile_cache.setup()
     print("devices:", jax.devices())
     run(1)
     run(2)

@@ -1,6 +1,5 @@
 """Time motion-only LM and projection matching standalone on device."""
 
-import os
 import time
 
 import numpy as np
@@ -22,9 +21,9 @@ def timeit(fn, n=20, warmup=3):
 def main():
     import jax
 
-    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from vslam_tpu.utils import compile_cache
+
+    compile_cache.setup()
     import jax.numpy as jnp
 
     from vslam_tpu.ops import lm, project_match

@@ -1,4 +1,4 @@
-"""vslam_tpu — a TPU-native visual(-inertial) SLAM framework.
+"""vslam_tpu — a visual(-inertial) SLAM framework in JAX.
 
 A from-scratch re-design (NOT a port) of the capabilities of the reference
 C++ system christoskokas/gtsam-vSLAM (see /root/reference and SURVEY.md):
@@ -10,12 +10,13 @@ C++ system christoskokas/gtsam-vSLAM (see /root/reference and SURVEY.md):
 - motion-only pose optimization (batched Levenberg-Marquardt),
 - keyframe-based multi-view triangulation,
 - sliding-window local bundle adjustment with an explicit Schur complement,
-- distributed BA over a jax.sharding Mesh (psum/reduce_scatter over ICI).
+- distributed BA over a jax.sharding Mesh (psum/reduce_scatter across
+  devices).
 
-Design principles (TPU-first):
+Design principles:
 - fixed-shape structure-of-arrays + validity masks everywhere (no
   recompilation per frame),
-- batched dense linear algebra on the MXU (Hamming matching as matmuls,
+- batched dense linear algebra (Hamming matching as matmuls,
   Schur reduced-camera solves as blocked Cholesky),
 - functional state: the world map is a pytree of preallocated device
   arrays, updated with pure functions; the tracker<->mapper handoff is a

@@ -1,6 +1,6 @@
 """Camera models, stereo rigs, and rectification.
 
-TPU-native replacement for the reference's Camera/StereoCamera
+Replacement for the reference's Camera/StereoCamera
 (reference include/Camera.h:54-107, src/Camera.cpp:46-119) and the driver's
 ``cv::initUndistortRectifyMap`` / ``cv::remap`` precompute
 (reference src/VIOSlam.cpp:282-306). The rectify maps are computed once on

@@ -5,11 +5,11 @@ cannot absorb a scale discrepancy: closing a mono loop over SE(3) warps
 the map (measured on the live mono circuit — BASELINE.md "Mono drift
 envelope"). ORB-SLAM closes mono loops over Sim(3) for exactly this
 reason (Strasdat et al., "Scale Drift-Aware Large Scale Monocular
-SLAM"); this module is the TPU-native (jit/jacfwd-differentiable,
+SLAM"); this module is the (jit/jacfwd-differentiable,
 branchless) Sim(3) core used by models/pose_graph.optimize_sim3_chain.
 
 Representation: a (4, 4) matrix [[s*R, t], [0, 1]] — composition is a
-plain matmul (MXU-friendly, vmappable), the group action on points is
+plain matmul (vmappable), the group action on points is
 the same einsum the SE(3) map-correction kernel already uses, and the
 scale is recovered as det(sR)^(1/3). Tangent ordering: [omega(3),
 nu(3), sigma(1)] — rotation first like geometry/se3.

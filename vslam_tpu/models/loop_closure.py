@@ -3,11 +3,11 @@
 The reference carries loop-closure STATE (include/Map.h:122-127,
 KeyFrame::LCPose) and checks its flags in both threads — but no detector
 ever sets them; LC is vestigial (SURVEY.md §2 quirks). This module makes
-it real, TPU-first:
+it real, as batched device programs:
 
 1. DETECT — when a new keyframe is inserted, its stored observation
    descriptors sweep every keyframe's table (models/reloc.keyframe_votes,
-   a lax.map of MXU Hamming matmuls), excluding the covisible set and the
+   a lax.map of Hamming matmuls), excluding the covisible set and the
    `min_gap` most recent keyframes (those match trivially).
 2. VERIFY — the candidate must pass the geometric check: the new KF's
    keys matched to the old KF's landmark-bearing keys, then a motion-only
@@ -314,7 +314,7 @@ class LoopCloser:
         elif n > 128:
             # chain+loops structure: O(P)/iteration block-Thomas +
             # Woodbury path (the dense (P,P,6,6) Hessian is 604 MB at
-            # P=2048; VERDICT r4 weak #6) — equivalence-tested against
+            # P=2048) — equivalence-tested against
             # the dense path in tests/test_loop_closure.py
             li, lj, lrel, lw = self._loop_edge_arrays(
                 old_kf, kf_slot, rel_loop

@@ -1,6 +1,6 @@
 """World map: preallocated structure-of-arrays with functional updates.
 
-TPU-native re-design of the reference's pointer-based world model
+Re-design of the reference's pointer-based world model
 (Map/MapPoint at include/Map.h:19-138, KeyFrame at include/KeyFrame.h:17-82):
 hash maps of heap objects become fixed-capacity device arrays + host-side
 slot counters; the tracker<->mapper mutex+flag protocol
@@ -9,7 +9,7 @@ the arrays and writes back with a single scatter, so there is no shared
 mutable aliasing and no race class to detect (SURVEY.md §5).
 
 Layout:
-- landmarks: position, representative descriptor (+-1 int8 MXU form),
+- landmarks: position, representative descriptor (+-1 int8 matmul form),
   scale-distance band (MapPoint::maxScaleDist/minScaleDist,
   src/Map.cpp:13-23), validity;
 - keyframes: pose + fixed-size per-KF observation table (pixel obs, octave,
@@ -58,7 +58,7 @@ class MapArrays:
     obs_lm: jax.Array  # (W, K) int32 landmark slot or -1
     obs_desc: jax.Array  # (W, K, 8) uint32 bit-packed per-KF key descriptors
     # (32x smaller than the former +-1 int8 form; matchers unpack per
-    # block via ops/hamming.unpack_signed right before the MXU matmul)
+    # block via ops/hamming.unpack_signed right before the Hamming matmul)
     obs_valid: jax.Array  # (W, K) bool — key slot holds a real detection
     # RIGHT-camera-only observations (landmarks matched in the right image
     # at predR but unmatched in the left — left-border exits, left
@@ -326,7 +326,7 @@ class WorldMap:
         slot = self.n_keyframes
         if slot >= self.kf_capacity:
             # long sequences (KITTI 00: ~4.5k frames, up to ~900 KFs) must
-            # not hit a hard wall (VERDICT round-1 weak #5)
+            # not hit a hard wall
             self.grow_keyframes(slot + 1)
         self.n_keyframes += 1
         self.kf_frame_idx[slot] = frame_idx
@@ -422,7 +422,7 @@ class WorldMap:
         """Shared-landmark counts of every KF against `kf_slot`, as ONE
         vectorized membership test over the whole observation table —
         O(KFs x K log K) instead of the per-pair python loop that scaled
-        O(KFs x K) python iterations (VERDICT round-1 weak #5; reference
+        O(KFs x K) python iterations (reference
         walks per-landmark observer maps instead, src/KeyFrame.cpp:103-145).
         Returns (n_keyframes,) int64 or None when covisibility is undefined."""
         ids = self.kf_obs_lm[kf_slot]

@@ -133,7 +133,7 @@ def optimize(
 
 
 # ---------------------------------------------------------------------------
-# Sparse (chain + loop-edge) path — VERDICT r4 #6.
+# Sparse (chain + loop-edge) path.
 #
 # A SLAM pose graph is an odometry CHAIN plus a handful of loop edges: its
 # Hessian is block-tridiagonal T plus an exact low-rank Gram correction

@@ -2,11 +2,11 @@
 
 The reference has NO relocalization — lost tracking dead-reckons forever
 (SURVEY.md §5 failure-detection row; its loop-closure state is vestigial
-and never driven). This module adds the TPU-native version of the
+and never driven). This module adds a batched version of the
 standard recovery: when the tracker has refused `reseed_after`
 consecutive solves, the current frame's descriptors are matched against
 the observation tables of EVERY keyframe — one masked Hamming sweep,
-expressed as a `lax.map` of (N x K) MXU matmuls over keyframe slots — and
+expressed as a `lax.map` of (N x K) matmuls over keyframe slots — and
 the best-voted keyframe re-anchors tracking: pose reset to that
 keyframe, active set reloaded with its (and its covisible neighbors')
 landmarks, and the normal wide-radius matching re-acquires on the OLD
@@ -14,7 +14,7 @@ map. Only if retrieval finds nothing does the tracker fall back to the
 map re-seed (which starts a new, rigidly-offset map).
 
 Retrieval cost: W x (N x K x 256) int8 matmuls ~ 0.5 GFLOP per 128
-keyframes — a few ms for a once-per-loss event.
+keyframes, paid once per loss event.
 """
 
 from __future__ import annotations

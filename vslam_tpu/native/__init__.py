@@ -4,9 +4,9 @@ Replaces the per-frame OpenCV imread/remap + CSV parsing the reference does
 inline on its tracking thread (src/VIOSlam.cpp:23-73, 282-306) with a
 compiled library: grayscale PNG decode (libpng), bilinear rectification,
 EuRoC IMU CSV parse, and a multi-threaded readahead prefetcher. The library
-is compiled on first import with g++ (cached next to the source); if no
-toolchain or libpng is available everything degrades to the pure-Python
-paths in vslam_tpu.utils.datasets.
+is compiled from io_native.cc at first use with g++ (cached next to the
+source, never committed); if no toolchain or libpng is available everything
+degrades to the pure-Python paths in vslam_tpu.utils.datasets.
 
 Usage:
     from vslam_tpu import native
@@ -36,17 +36,23 @@ _build_lock = threading.Lock()
 
 def _build() -> str | None:
     """Compile the shared library if missing/stale. Returns an error string
-    or None on success."""
+    or None on success. Compiles to a name of this process's own and moves
+    it into place atomically, so processes importing the package at once
+    never load a half-written library."""
     try:
         if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
             return None
+        tmp = f"{_SO}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = [
-            "g++", "-std=c++17", "-O3", "-march=native", "-shared", "-fPIC",
-            _SRC, "-o", _SO, "-lpng", "-lpthread",
+            "g++", "-std=c++17", "-O3", "-shared", "-fPIC",
+            _SRC, "-o", tmp, "-lpng", "-lpthread",
         ]
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
         if r.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
             return f"native build failed: {r.stderr[-500:]}"
+        os.replace(tmp, _SO)
         return None
     except Exception as e:  # no compiler, no libpng, ...
         return f"native build unavailable: {e}"

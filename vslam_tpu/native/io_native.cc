@@ -1,4 +1,4 @@
-// Native host-side data pipeline for the TPU SLAM runtime.
+// Native host-side data pipeline for the SLAM runtime.
 //
 // The reference drivers do all frame IO inline on the tracking thread with
 // OpenCV (imread + remap per frame, reference src/VIOSlam.cpp:292-306, IMU
@@ -6,10 +6,9 @@
 // from Python via ctypes: grayscale PNG/PGM decode (libpng), bilinear
 // rectification remap, EuRoC-format IMU CSV parsing, and a multi-threaded
 // readahead prefetcher that keeps decoded+rectified frames ready in a ring
-// buffer so the Python frame loop never blocks on disk or decode — the
-// host-side input pipeline the SURVEY.md §3.1 TPU design calls for.
+// buffer so the Python frame loop never blocks on disk or decode.
 //
-// Build: g++ -O3 -march=native -shared -fPIC io_native.cc -o _io_native.so
+// Build: g++ -std=c++17 -O3 -shared -fPIC io_native.cc -o _io_native.so
 //        -lpng -lpthread   (see vslam_tpu/native/__init__.py)
 
 #include <png.h>

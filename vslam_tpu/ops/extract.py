@@ -27,7 +27,7 @@ class Keys(NamedTuple):
     octave: jax.Array  # (N,) int32
     response: jax.Array  # (N,) f32
     valid: jax.Array  # (N,) bool
-    desc: jax.Array  # (N, 256) int8 +-1 (MXU form)
+    desc: jax.Array  # (N, 256) int8 +-1 (matmul form)
     packed: jax.Array  # (N, 8) uint32 (bit-packed form)
     angle: jax.Array  # (N,) f32 radians
 
@@ -54,13 +54,9 @@ def extract_batch(
 ) -> Keys:
     """Batched extraction over (B, H, W) images (e.g. a stereo pair as one
     program). Detection runs per pyramid level (static shapes differ);
-    each level's 31x31 patches are then extracted with TWO-SIDED ONE-HOT
-    MATMULS on the MXU (patch = RowSel @ level_img @ ColSel^T) instead of a
-    flat element gather — random-access gathers scalarize on TPU (~20 ms for
-    the 2M-element patch fetch) while the one-hot contraction runs in ~2 ms
-    and is bit-exact (each output has exactly ONE nonzero term, so there is
-    no accumulation error). Orientation + BRIEF are computed from the
-    patches. All Keys fields carry a leading batch dim."""
+    each level's 31x31 patches are then gathered around the keypoints
+    (ops/patches.extract_windows). Orientation + BRIEF are computed from
+    the patches. All Keys fields carry a leading batch dim."""
     B, H, W = imgs.shape
     shapes = pyramid.level_shapes(H, W, n_levels, scale)
     quotas = level_quotas(total, n_levels, scale)
@@ -103,14 +99,11 @@ def extract_batch(
         valids.append(valid)
         slot_level += [l] * quota
 
-        # patch extraction for this level's keypoints: the Pallas window
-        # kernel (ops/patches.py — one-hot dots on the VMEM-resident level
-        # image). Every jnp-level formulation gets rewritten by XLA's
-        # algebraic simplifier into a scalarizing gather (~6 ms/frame at
-        # bench shapes); inside Pallas the dots stay dots. Bit-exact for
-        # interior keypoints (the edge margin >= P/2 guarantees
-        # interiority of every valid key; border pad slots get a shifted
-        # window, which only ever feeds masked-invalid descriptors).
+        # patch extraction for this level's keypoints (ops/patches.py, a
+        # gather). Exact for interior keypoints (the edge margin >= P/2
+        # guarantees interiority of every valid key; border pad slots get
+        # a shifted window, which only ever feeds masked-invalid
+        # descriptors).
         x0 = jnp.clip(xy[:, :, 0] - half, 0, w - P)
         y0 = jnp.clip(xy[:, :, 1] - half, 0, h - P)
         patch_parts.append(patches.extract_windows(blurred, x0, y0, P, P))

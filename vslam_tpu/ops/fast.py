@@ -1,11 +1,11 @@
 """FAST-16 corner detection + grid ANMS, fully vectorized.
 
-TPU-native replacement for the reference's tiled OpenCV FAST + SSC pipeline
+Replacement for the reference's tiled OpenCV FAST + SSC pipeline
 (reference src/FeatureExtractor.cpp:535-618: 35-px tiles, threshold 20 with
 fallback 7; SSC ANMS at 368-468; per-level quota 648-659).
 
 Design: the segment test is an elementwise program over the whole level
-image (VPU-friendly: 16 shifted views, arc tests as boolean reductions),
+image (16 shifted views, arc tests as boolean reductions),
 followed by 3x3 score NMS and a static per-cell top-k that replaces the
 sequential SSC with an equivalent contract: spatially uniform coverage and
 a per-level quota. Everything is static-shaped; keypoints are returned as

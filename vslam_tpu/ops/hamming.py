@@ -1,16 +1,16 @@
-"""Hamming distance matrices on the MXU.
+"""Hamming distance matrices as matmuls.
 
 The reference compares 256-bit BRIEF descriptors with a scalar popcount
 loop (reference FeatureMatcher::DescriptorDistance,
 src/FeatureMatcher.cpp:710-726, thresholded at 75/100/50 in
-include/FeatureMatcher.h:25-30). On TPU we batch every matching stage into
+include/FeatureMatcher.h:25-30). Here every matching stage is batched into
 one distance matrix: with descriptors expanded to +-1 vectors,
 
     dot(a, b) = 256 - 2 * hamming(a, b)   =>   hamming = (256 - dot) / 2
 
-so an (N, 256) x (256, M) matmul on the MXU computes all N*M distances at
-once. The +-1 expansion is exact in bfloat16 (integers up to 256), so this
-runs at full MXU speed with no precision loss.
+so an (N, 256) x (256, M) matmul computes all N*M distances at once. The
++-1 expansion is exact in bfloat16 and the sums (integers up to 256) are
+exact in the f32 accumulator, so the bf16 product loses no precision.
 """
 
 from __future__ import annotations
@@ -46,10 +46,10 @@ def hamming_matrix(
 
 
 def unpack_signed(packed: jax.Array) -> jax.Array:
-    """(…, 8) uint32 bit-packed descriptors -> (…, 256) int8 +-1 MXU form.
+    """(…, 8) uint32 bit-packed descriptors -> (…, 256) int8 +-1 matmul form.
     Bit order matches ops/orb._pack_bits: bit b of word w is descriptor
     bit w*32+b. The map stores descriptors packed (32x smaller HBM:
-    obs_desc at driver defaults 512 MiB -> 64 MiB, VERDICT r3 weak #3);
+    obs_desc at driver defaults 512 MiB -> 64 MiB);
     matchers unpack per block right before the Hamming matmul — a cheap
     vectorized shift/mask that XLA fuses into the operand load."""
     bits = (packed[..., :, None] >> jnp.arange(32, dtype=jnp.uint32)) & 1

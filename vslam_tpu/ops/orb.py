@@ -10,7 +10,7 @@ so only internal consistency matters.
 
 All functions take a blurred level image and a fixed-size keypoint array
 with a validity mask; outputs are packed (N, 8) uint32 descriptors plus a
-(N, 256) +-1 int8 expansion used for MXU Hamming matching
+(N, 256) +-1 int8 expansion used for matmul Hamming matching
 (vslam_tpu/ops/hamming.py).
 """
 
@@ -130,11 +130,10 @@ def brief_from_patches(
     patches: jax.Array, angle: jax.Array
 ) -> tuple[jax.Array, jax.Array]:
     """Rotated BRIEF sampled INSIDE pre-gathered 31x31 patches via
-    FACTORIZED ONE-HOT MATMULS (row one-hot contraction on the MXU, then a
-    masked column reduction) — a flat take_along_axis scalarizes on TPU
-    (~15 ms for 2x1024 keys) while this runs in ~1.6 ms. Bit-exact vs the
-    gather form (:func:`brief_from_patches_gather`): the row contraction has
-    exactly one nonzero term per output, so there is no accumulation error.
+    FACTORIZED ONE-HOT MATMULS (row one-hot contraction, then a masked
+    column reduction). Bit-exact vs the gather form
+    (:func:`brief_from_patches_gather`): the row contraction has exactly
+    one nonzero term per output, so there is no accumulation error.
 
     patches: (..., N, 31, 31); angle: (..., N). Returns (packed (..., N, 8)
     uint32, signed (..., N, 256) int8).
@@ -162,7 +161,7 @@ def brief_from_patches_gather(
     patches: jax.Array, angle: jax.Array
 ) -> tuple[jax.Array, jax.Array]:
     """Gather-based oracle for :func:`brief_from_patches` (same bits; used
-    in parity tests and host-side debugging — slow on TPU)."""
+    in parity tests and host-side debugging)."""
     r1x, r1y, r2x, r2y = _rotated_pattern(angle)
     flat = patches.reshape(*patches.shape[:-2], PATCH * PATCH)
     idx1 = r1y * PATCH + r1x

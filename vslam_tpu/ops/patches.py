@@ -1,42 +1,10 @@
-"""Pallas TPU kernel: batched patch-window extraction at runtime centers.
+"""Batched patch-window extraction at runtime keypoint corners.
 
-The extractor and the stereo SAD refinement both need (P x Pw) image
-windows at per-keypoint positions known only at runtime. On TPU neither
-standard formulation is fast:
-
-- an advanced-index gather scalarizes into ~B*q*P single-row DMAs
-  (descriptor-rate bound: ~6 ms for the bench extraction's 63k rows);
-- the one-hot-matmul trick gets pattern-matched by XLA's algebraic
-  simplifier back into that same gather (zero dot ops survive in the
-  optimized HLO), so it cannot be forced from the jnp level.
-
-This kernel does it the TPU way: the level image lives as ONE VMEM block
-(a 752x480 f32 frame is 1.4 MB — it fits), and for each group of GROUP
-keypoints two block-diagonal ONE-HOT DOTS on the MXU select the P rows
-and Pw columns:
-
-    t   = RowSel(G*P, h) @ img(h, w)        # absolute row selection
-    big = t(G*P, w) @ ColSel(w, G*Pw)       # per-key column selection
-    out[k] = big[k*P:(k+1)*P, k*Pw:(k+1)*Pw]
-
-Inside Pallas the algebraic simplifier cannot rewrite the dots into
-gathers, and the block-diagonal grouping amortizes MXU launches (the
-G x flop waste is irrelevant — the dots are tiny). Selector construction
-is one broadcast-compare per dot. Bit-exact vs the gather: every output
-element has exactly one nonzero term. End-to-end the frame program
-dropped 14.25 -> 11.1 ms when this replaced the gathers.
-
-Alternatives measured and rejected: per-key grid programs (program
-overhead ~20 us each), per-key aligned strip DMAs with double buffering
-(DMA/semaphore waits dominate at ~40 us/group), int8/bf16 dots (the dots
-are not the bottleneck), whole-group output blocks with XLA-side
-diagonal extraction (the extra HBM round trip eats the win).
-
-Used by ops/extract (31x31 BRIEF patches); ops/stereo_match's SAD
-windows stay on an XLA strips path (its scalar-prefetch SMEM tipped the
-KITTI-sized fused frame program over the 1 MiB SMEM budget). Falls back
-to the XLA gather on CPU (Mosaic is TPU-only), keeping tests runnable on
-the virtual mesh.
+The extractor needs (P x Pw) image windows at per-keypoint positions known
+only at runtime (31x31 BRIEF patches for every pyramid level). This is a
+plain advanced-index gather left to XLA: a copy bound by memory bandwidth
+whose source (one level image, at most 752x480 f32 = 1.4 MB) stays cache
+resident, so there is no reuse for a hand-written kernel to exploit.
 """
 
 from __future__ import annotations
@@ -45,58 +13,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-CHUNK = 64  # keypoints per grid program
-GROUP = 8  # keys per batched block-diagonal dot
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _kernel(q_pad: int, P: int, Pw: int, h: int, w: int):
-    n_groups = CHUNK // GROUP
-
-    def kernel(xy_ref, img_ref, out_ref):
-        chunk = pl.program_id(0)
-        rc = jax.lax.broadcasted_iota(jnp.int32, (GROUP * P, h), 1)
-        wi = jax.lax.broadcasted_iota(jnp.int32, (w, GROUP * Pw), 0)
-        iota_p = jax.lax.broadcasted_iota(jnp.int32, (1, P), 1)
-        iota_j = jax.lax.broadcasted_iota(jnp.int32, (1, Pw), 1)
-        img = img_ref[0]
-
-        def body(g, _):
-            base = chunk * CHUNK + g * GROUP
-            row_tgt = []
-            col_tgt = []
-            for k in range(GROUP):
-                y0 = xy_ref[base + k, 1]
-                x0 = xy_ref[base + k, 0]
-                row_tgt.append(y0 + iota_p)  # (1, P) absolute rows
-                col_tgt.append(x0 + iota_j)  # (1, Pw) absolute cols
-            row_tgt = jnp.concatenate(row_tgt, axis=1).reshape(GROUP * P, 1)
-            col_tgt = jnp.concatenate(col_tgt, axis=1)  # (1, G*Pw)
-            rsel = (rc == row_tgt).astype(jnp.float32)  # (G*P, h)
-            csel = (wi == col_tgt).astype(jnp.float32)  # (w, G*Pw)
-            t = jax.lax.dot_general(
-                rsel, img, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )  # (G*P, w)
-            big = jax.lax.dot_general(
-                t, csel, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )  # (G*P, G*Pw)
-            for k in range(GROUP):
-                out_ref[g * GROUP + k] = big[
-                    k * P : (k + 1) * P, k * Pw : (k + 1) * Pw
-                ]
-            return 0
-
-        jax.lax.fori_loop(0, n_groups, body, 0)
-
-    return kernel
 
 
 @functools.partial(jax.jit, static_argnames=("P", "Pw"))
@@ -104,43 +20,10 @@ def extract_windows(img: jax.Array, x0: jax.Array, y0: jax.Array, P: int, Pw: in
     """(B, q, P, Pw) windows img[b, y0[b,q]:y0+P, x0[b,q]:x0+Pw].
 
     img: (B, h, w) float32. x0/y0: (B, q) int32 TOP-LEFT corners, already
-    clipped to [0, w-Pw] / [0, h-P]. Bit-exact equals the advanced-index
-    gather for in-range corners."""
-    B, h, w = img.shape
-    q = x0.shape[1]
-    if jax.default_backend() != "tpu":
-        # XLA gather fallback (CPU tests / virtual mesh)
-        dy = jnp.arange(P)
-        dx = jnp.arange(Pw)
-        ys = y0[..., None] + dy[None, None]  # (B, q, P)
-        xs = x0[..., None] + dx[None, None]  # (B, q, Pw)
+    clipped to [0, w-Pw] / [0, h-P]."""
+    with jax.named_scope("patch_windows"):
+        ys = y0[..., None] + jnp.arange(P)[None, None]  # (B, q, P)
+        xs = x0[..., None] + jnp.arange(Pw)[None, None]  # (B, q, Pw)
         return jax.vmap(
             lambda im, ysb, xsb: im[ysb[:, :, None], xsb[:, None, :]]
         )(img, ys, xs)
-
-    q_pad = _round_up(q, CHUNK)
-    xy = jnp.stack([x0, y0], axis=-1).astype(jnp.int32)  # (B, q, 2)
-    if q_pad != q:
-        xy = jnp.pad(xy, ((0, 0), (0, q_pad - q), (0, 0)))
-    xy_flat = xy.reshape(B * q_pad, 2)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B * q_pad // CHUNK,),
-        in_specs=[
-            pl.BlockSpec(
-                (1, h, w),
-                lambda i, xy: (i // (q_pad // CHUNK), 0, 0),
-                memory_space=pltpu.VMEM,
-            )
-        ],
-        out_specs=pl.BlockSpec(
-            (CHUNK, P, Pw), lambda i, xy: (i, 0, 0), memory_space=pltpu.VMEM
-        ),
-    )
-    out = pl.pallas_call(
-        _kernel(q_pad, P, Pw, h, w),
-        out_shape=jax.ShapeDtypeStruct((B * q_pad, P, Pw), jnp.float32),
-        grid_spec=grid_spec,
-    )(xy_flat, img)
-    return out.reshape(B, q_pad, P, Pw)[:, :q]

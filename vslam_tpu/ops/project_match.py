@@ -1,11 +1,11 @@
-"""Projection-guided landmark-to-keypoint matching (masked MXU reductions).
+"""Projection-guided landmark-to-keypoint matching (masked matmul reductions).
 
 Replaces the reference's grid-index projection matchers
 (FeatureMatcher::matchByProjectionRPred src/FeatureMatcher.cpp:254-389,
 matchByProjectionRPredLBA 66-252, matchByProjectionMono 391-456,
 matchByRadius 458-526, over the 64-wide cell grid built at
-src/FeatureTracker.cpp:28-54). On TPU the grid index is unnecessary: the
-full (M landmarks x N keys) Hamming matrix is one MXU matmul, and the
+src/FeatureTracker.cpp:28-54). Here the grid index is unnecessary: the
+full (M landmarks x N keys) Hamming matrix is one matmul, and the
 spatial/octave/radius gates are elementwise masks on it.
 
 Contracts preserved:

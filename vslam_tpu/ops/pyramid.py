@@ -1,6 +1,6 @@
 """Image pyramid + separable Gaussian blur.
 
-TPU-native replacement for reference FeatureExtractor::computePyramid
+Replacement for reference FeatureExtractor::computePyramid
 (reference src/FeatureExtractor.cpp:342-366: 8 levels, scale 1.2, bilinear
 resize, reflect-101 border) and the 7x7 sigma=2 Gaussian blur applied
 before BRIEF (reference src/FeatureExtractor.cpp:515-516).

@@ -1,9 +1,9 @@
 """Batched stereo matching with sub-pixel disparity refinement.
 
-TPU-native re-expression of reference FeatureMatcher::findStereoMatchesORB2R
+Re-expression of reference FeatureMatcher::findStereoMatchesORB2R
 (src/FeatureMatcher.cpp:528-708). Instead of row-bucket candidate lists and
 scalar loops, we compute the full (N_left x N_right) masked Hamming matrix
-on the MXU and reduce:
+as one matmul and reduce:
 
 - row gate: |y_l - y_r| <= row_radius * scale^octave_r (replaces the
   destributeRightKeys row buckets at 728-752 — with correct bounds, fixing
@@ -41,15 +41,10 @@ def _gather_patch_rows(img, xc, yc, half_h, half_w):
     """(N, 2*half_h+1, 2*half_w+1) patches at integer centers.
 
     Row strips come from per-key dynamic_slices (rows are contiguous);
-    columns are selected with a one-hot einsum. An advanced-index gather
-    here scalarizes on TPU (~3 ms for the (N,11,21) fetch at bench
-    shapes); this form halves that. The Pallas window kernel
-    (ops/patches.py, used by the extractor) is faster still but its
-    scalar-prefetch SMEM tipped the KITTI-sized fused frame program over
-    the 1 MiB SMEM budget — the SAD windows are only ~15% of the patch
-    traffic, so they stay on the XLA path. Keypoints closer than the
-    window half-size to the border get a shifted (not clamped) window —
-    the extractor's edge margin keeps every valid key interior."""
+    columns are selected with a one-hot einsum (exact: one nonzero term
+    per output). Keypoints closer than the window half-size to the border
+    get a shifted (not clamped) window — the extractor's edge margin keeps
+    every valid key interior."""
     H, W = img.shape
     Ph = 2 * half_h + 1
     dx = jnp.arange(-half_w, half_w + 1)

@@ -3,10 +3,10 @@
 The reference's only parallelism is three pthreads + a mutex
 (SURVEY.md §2 parallelism inventory). Here the scaling dimension is a
 jax.sharding Mesh: landmark blocks shard over the `lm` axis (Schur
-assembly is a sum of per-landmark outer products -> psum over ICI), and
-multi-sequence batch runs shard over an optional `seq` axis. Multi-host
-initialization is jax.distributed (no NCCL/MPI analog needed: XLA
-collectives are the backend)."""
+assembly is a sum of per-landmark outer products -> psum across
+devices), and multi-sequence batch runs shard over an optional `seq`
+axis. The mesh is a flat 1-D list of devices. Multi-host initialization
+is jax.distributed (XLA's collectives are the backend)."""
 
 from __future__ import annotations
 

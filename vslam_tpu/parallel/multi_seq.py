@@ -4,16 +4,10 @@ The reference processes one dataset sequence per process (reference
 src/VIOSlam.cpp:141-329). Here S same-resolution sequences ride ONE
 vmapped frame program — one compile, one dispatch, one result fetch per
 frame for the whole batch (SURVEY.md §7 phase 5). Typical use:
-batch-evaluating several sequences on one chip.
-
-Measured regimes (one TPU v5e chip): at SMALL per-frame programs
-(320x240, 512 features — dispatch/latency-bound) batching wins ~2.7x
-aggregate throughput at S=4 and ~2.9x at S=8; at full EuRoC shapes
-(752x480, 1024 features) a single sequence already saturates the chip
-(the vmapped batch runs at ~1.0x per-frame-equivalent), so batch mode
-buys convenience, not throughput. Use it when evaluating many
-low-resolution sequences or when the tracker config underfills the
-chip.
+batch-evaluating several sequences on one device, or sharding the
+sequence axis over several. Batching pays where one sequence's frame
+program underfills the device (small frames, few features); its gain at
+full EuRoC shapes is not measured.
 
 Design: each sequence keeps its own StereoTracker (host bookkeeping, KF
 policy, world map, local mapper) — those are per-sequence and event-
@@ -43,8 +37,8 @@ from vslam_tpu.models import tracker as tracker_mod
 
 class BatchedStereoFrontend:
     """Drive S StereoTrackers (or S MonoTrackers) with one batched frame
-    program. Mono sequences batch the same `_track_step` with mono=True
-    (VERDICT r4 #5: multi-sequence was stereo-only); each MonoTracker's
+    program. Mono sequences batch the same `_track_step` with mono=True;
+    each MonoTracker's
     BOOTSTRAP runs unbatched through its own track() — it is host-driven,
     per-sequence event logic — and the batch kicks in once every
     sequence has initialized."""

@@ -17,10 +17,10 @@ This wraps the SAME kernel the single-device mapper runs
 (:func:`vslam_tpu.ops.schur.local_ba_two_rounds` with ``axis_name``), so
 the sharded solve keeps the full semantics — LM accept/reject on psum'd
 errors, GTSAM relativeErrorTol early exit, the 2-round chi-squared sweep
-— and matches the single-device result to float reduction order. This is
-the TPU-native replacement for scaling the reference's GTSAM window BA
-(SURVEY.md §5 long-context mapping; BASELINE.json >= 1.6x 1->2 host
-target — the same shard_map runs over DCN for multi-host meshes).
+— and matches the single-device result to float reduction order. It
+scales the reference's single-threaded GTSAM window BA over several
+devices (SURVEY.md §5 long-context mapping); the same shard_map runs over
+a multi-process mesh (tests/test_distributed.py).
 """
 
 from __future__ import annotations
@@ -28,11 +28,8 @@ from __future__ import annotations
 import functools
 
 import jax
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
-try:  # jax >= 0.8 promotes shard_map out of experimental
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
 
 from vslam_tpu.ops import schur
 

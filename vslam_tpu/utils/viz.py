@@ -1,9 +1,10 @@
 """Map / trajectory visualization export.
 
-TPU-native replacement for the reference's Iridescence live viewer
+Replacement for the reference's Iridescence live viewer
 (reference src/Visualization.cpp:125-143: point cloud colored by activity
 59-94, camera frusta as thin lines 7-57, per-KF frusta 96-118). A headless
-TPU host has no GL stack, so instead of a render loop this module exports:
+accelerator host has no GL stack, so instead of a render loop this module
+exports:
 
 - :func:`export_ply` — landmarks (+ trajectory) as a standard PLY point
   cloud for any external viewer (MeshLab, CloudCompare, rerun);
@@ -198,8 +199,7 @@ def export_html(
 class LiveMapWriter:
     """Incremental map export: rewrite the HTML viewer + a sibling .json
     every N inserted keyframes (atomic tmp+rename, so a reader never sees
-    a torn file). The exported page is SELF-REFRESHING (VERDICT r4 #3
-    missing item): it polls the .json and redraws in place when the
+    a torn file). The exported page is SELF-REFRESHING: it polls the .json and redraws in place when the
     directory is served over http, or falls back to timed reloads under
     file:// — the headless stand-in for the reference's live render loop
     (src/Visualization.cpp:125-143), camera-follow included via the
